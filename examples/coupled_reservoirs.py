@@ -13,10 +13,6 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")
-
 import numpy as np
 
 from jutul.jl_tpu import (

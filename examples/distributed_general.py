@@ -1,8 +1,8 @@
 """Example: general-partition SPMD simulation + distributed adjoint.
 
 Runs a two-phase waterflood on an UnstructuredMesh over an 8-device mesh
-(fake CPU devices here — the same `jax.shard_map` program runs on a TPU
-pod slice), with a non-trivial graph partition, packed `all_to_all` halo
+(virtual CPU devices here — the same `jax.shard_map` program runs over
+the GPUs of one host), with a non-trivial graph partition, packed `all_to_all` halo
 exchange, distributed CPR-free Krylov, and the distributed adjoint
 (transposed halos via `jax.linear_transpose`), checked against the
 single-device answer.

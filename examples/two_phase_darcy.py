@@ -9,10 +9,6 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")  # demo scale; remove for TPU
-
 import numpy as np
 
 from jutul.jl_tpu import (

@@ -1,6 +1,6 @@
-"""jutul.jl_tpu — a TPU-native implicit finite-volume multiphysics framework.
+"""jutul.jl_tpu — an implicit finite-volume multiphysics framework in JAX.
 
-A ground-up JAX/XLA/Pallas re-design with the capabilities of Jutul.jl
+A ground-up JAX/XLA re-design with the capabilities of Jutul.jl
 (sintefmath/Jutul.jl): declarative models (primary/secondary variables,
 parameters, residual equations on mesh entities), implicit adaptive
 time-stepping with Newton's method, vmap(jacfwd) entity-local AD assembly

@@ -85,7 +85,7 @@ class AdjointStorage:
         # optional preconditioned Krylov for the transposed lambda-solves
         # (reference behavior: the adjoint-layout system goes through the
         # SAME GenericKrylov+preconditioner stack as the forward solve,
-        # gradients.jl:168-224) — required in practice for f32/TPU sweeps
+        # gradients.jl:168-224) — required in practice for f32 device sweeps
         # where unpreconditioned GMRES at rtol 1e-10 stagnates. Jitted ONCE
         # here: an eager per-step call would retrace the Krylov while_loop
         # every backward step (fresh matvec closure = cache miss).
@@ -348,7 +348,7 @@ def solve_adjoint_sensitivities_jit(
     ``lax.scan`` over steps with the transposed lambda-solves (optionally
     preconditioned Krylov) inside the program.
 
-    TPU-native counterpart of the reference's backward-in-time host loop
+    JAX-native counterpart of the reference's backward-in-time host loop
     (gradients.jl:230-284): where the reference re-assembles and solves
     per step from the host, here the stacked dof states ride a scan and
     the entire sweep — residual transposes, Krylov while_loops, vjp

@@ -1,6 +1,6 @@
 """Typed, self-documenting option registry.
 
-TPU-native counterpart of Jutul's ``JutulConfig`` (reference:
+JAX-native counterpart of Jutul's ``JutulConfig`` (reference:
 src/core_types/core_types.jl JutulConfig, simulator/types.jl:98-119,
 src/config.jl:9). Options are declared with ``add_option`` carrying a default,
 a short and long description, an expected type, and optionally a set of legal

@@ -10,7 +10,7 @@ Mapping to this framework:
 - DefaultContext        -> CPUContext (f64, debugging/conformance)
 - ParallelCSRContext    -> CPUContext too — XLA's own threading replaces
                            Polyester @batch loops (SURVEY §2.8)
-- SingleCUDAContext     -> TPUContext (the whole point of the rebuild)
+- SingleCUDAContext     -> GPUContext (f32 working precision on the card)
 - matrix layouts        -> the single BlockELL layout; ``as_adjoint`` maps
                            to transposed operators (ell_rmatvec)
 """
@@ -37,14 +37,17 @@ class JutulContext:
         return self.index_dtype
 
     def transfer(self, x):
-        """Move an array to this context's device (reference transfer)."""
+        """Move an array to this context's device (reference transfer);
+        raises when no device of the context's platform is attached."""
         devs = [d for d in jax.devices() if d.platform == self.platform]
+        if not devs:
+            raise RuntimeError(
+                f"{type(self).__name__}: no {self.platform!r} device "
+                f"attached (JAX sees {[d.platform for d in jax.devices()]})")
         arr = jnp.asarray(x, dtype=self.float_dtype
                           if np.issubdtype(np.asarray(x).dtype, np.floating)
                           else None)
-        if devs:
-            return jax.device_put(arr, devs[0])
-        return arr
+        return jax.device_put(arr, devs[0])
 
 
 @dataclass(frozen=True)
@@ -58,28 +61,25 @@ class CPUContext(JutulContext):
 
 
 @dataclass(frozen=True)
-class TPUContext(JutulContext):
-    """TPU, float32 working precision (the reference's aspirational
-    SingleCUDAContext, realized)."""
+class GPUContext(JutulContext):
+    """GPU, float32 working precision (the reference's SingleCUDAContext,
+    realized)."""
 
     float_dtype: object = np.float32
-    platform: str = "tpu"
+    platform: str = "gpu"
 
 
 def select_contexts(kind: str = "default") -> JutulContext:
     """reference select_contexts (src/context.jl:96).
 
-    ``"auto"`` picks TPUContext when a TPU backend is attached, else
+    ``"auto"`` picks GPUContext when a GPU is attached, else
     DefaultContext — the recommended entry point for portable scripts.
     """
     if kind == "auto":
-        try:
-            has_tpu = any(d.platform == "tpu" for d in jax.devices())
-        except Exception:
-            has_tpu = False
-        return TPUContext() if has_tpu else DefaultContext()
+        has_gpu = any(d.platform == "gpu" for d in jax.devices())
+        return GPUContext() if has_gpu else DefaultContext()
     if kind in ("default", "cpu", "csr"):
         return DefaultContext()
-    if kind in ("tpu", "cuda", "gpu"):
-        return TPUContext()
+    if kind in ("gpu", "cuda"):
+        return GPUContext()
     raise ValueError(f"unknown context kind {kind!r}")

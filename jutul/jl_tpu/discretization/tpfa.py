@@ -150,7 +150,7 @@ def half_face_map(neighbors: np.ndarray, n_cells: int):
     """Padded ELL half-face map: for each cell, its incident faces and signs.
 
     Counterpart of the CSR half-face maps (reference src/domains.jl:101); here
-    padded to the max vertex degree for TPU-friendly static shapes.
+    padded to the max vertex degree for static shapes.
 
     Returns dict with:
       - ``faces``  (n_cells, Dmax) int32: incident face index (0 pad)
@@ -191,7 +191,7 @@ def half_face_map(neighbors: np.ndarray, n_cells: int):
 # The reference exposes this chain via parameters_jacobian_wrt_data_domain
 # (variables/vectorization.jl:281): gradients of an objective with respect to
 # model parameters (transmissibilities, pore volumes) pull back to raw
-# DataDomain fields (permeability, porosity). TPU-native: the geometry stays
+# DataDomain fields (permeability, porosity). JAX-native: the geometry stays
 # static numpy; the differentiable fields are traced with jnp so jax.vjp /
 # jacfwd give the chain-rule Jacobian with no sparsity tracing.
 # ---------------------------------------------------------------------------

@@ -1,12 +1,13 @@
 """Precision control for the framework.
 
 The reference (Jutul.jl) is Float64 throughout; Julia gives it that for free.
-On TPU, float64 is emulated and slow, so precision is a first-class, explicit
-choice here:
+On an accelerator float64 runs at a fraction of the float32 rate and
+doubles the bytes every bandwidth-bound stage moves, so precision is a
+first-class, explicit choice here:
 
 - ``float_type()`` — the working dtype for states/residuals/Jacobians.
 - x64 is enabled at import so CPU conformance tests can run at reference
-  precision; TPU benchmarks may select float32 with iterative refinement.
+  precision; GPU runs may select float32 with iterative refinement.
 
 Reference behavior being reproduced: Jutul's ``float_type(context)``
 (src/context.jl:12-92).
@@ -21,14 +22,13 @@ import jax.numpy as jnp
 # working dtype; enabling x64 merely *allows* float64, it does not force it.
 jax.config.update("jax_enable_x64", True)
 
-# TPU dot/einsum default precision feeds the MXU bf16-truncated inputs.
-# For an implicit-solver framework every matmul-shaped contraction sits
-# on a Jacobian/preconditioner path, where silent bf16 rounding degrades
-# Newton/Krylov convergence RATES while leaving answers correct — a
-# failure invisible to correctness tests (measured on the 1M flagship:
-# 9.9 vs ~5 linear its/Newton; docs/tpu.md r5). Full f32 precision is
-# the right framework-wide default; the few big matmuls here are
-# bandwidth-bound, so the extra MXU passes are free.
+# Default dot/einsum precision may run float32 contractions in TF32 on the
+# GPU's tensor cores (about three decimal digits). For an implicit-solver
+# framework every matmul-shaped contraction sits on a Jacobian or
+# preconditioner path, where silent input rounding degrades Newton/Krylov
+# convergence RATES while leaving answers correct — a failure invisible
+# to correctness tests. Full f32 precision is the framework-wide default;
+# the few matmuls here are bandwidth-bound, so the extra passes are free.
 jax.config.update("jax_default_matmul_precision", "highest")
 
 _DEFAULT_FLOAT = jnp.float64
@@ -65,19 +65,3 @@ class default_float:
         global _DEFAULT_FLOAT
         _DEFAULT_FLOAT = self._saved
         return False
-
-
-def compute_platform() -> str:
-    """The platform new computations will actually land on: the
-    ``jax.default_device(...)`` override when one is active, else the
-    process default backend. Mosaic auto-gates MUST use this instead of
-    ``jax.default_backend()`` — a TPU-attached process running a CPU
-    sub-computation (e.g. the mixed-precision refinement's correction
-    solves under ``jax.default_device(cpu)``) still reports "tpu" as its
-    default backend, and a Pallas kernel auto-enabled there dies with
-    "Only interpret mode is supported on CPU backend" (measured on the
-    r3 bench: the fused BiCGStab body fired inside refine_solution)."""
-    dev = jax.config.jax_default_device
-    if dev is not None:
-        return dev.platform
-    return jax.default_backend()

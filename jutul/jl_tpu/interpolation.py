@@ -1,10 +1,10 @@
 """Table interpolation utilities (jittable, differentiable).
 
-TPU-native counterpart of Jutul's interpolation module (reference:
+JAX-native counterpart of Jutul's interpolation module (reference:
 src/interpolation.jl:69-391 — ``LinearInterpolant``, ``BilinearInterpolant``,
 ``get_1d_interpolator``, ``get_2d_interpolator``). Implementation is pure
 ``jnp``: works under jit/vmap/grad, with the constant-spacing fast path
-replaced by vectorized ``searchsorted`` (uniform cost on TPU).
+replaced by vectorized ``searchsorted`` (uniform cost per query).
 
 Extrapolation follows the reference default: constant-slope (linear)
 extrapolation outside the table unless ``constant_dx`` tables are clamped by
@@ -109,7 +109,7 @@ def get_1d_interpolator(
     cap_start: bool = False,
     cap_end: bool = False,
     cap_endpoints: bool | None = None,
-    constant_dx: bool | None = None,  # accepted for API parity; irrelevant on TPU
+    constant_dx: bool | None = None,  # accepted for API parity; unused
 ) -> LinearInterpolant:
     """Build a 1D interpolant (reference src/interpolation.jl:1).
 

@@ -7,7 +7,7 @@ hierarchy :165; plus the HYPRE BoomerAMG and AMGCL extensions —
 ext/JutulHYPREExt, ext/JutulAMGCLWrapExt — whose native C/C++ engines this
 module replaces with XLA).
 
-TPU-native split of work:
+Split of work:
 - **Symbolic setup is value-independent and runs once** (numpy): greedy
   aggregation (Vanek-style) on the sparsity graph, coarse-level ELL
   structures, and the fine->coarse scatter maps for the Galerkin product.
@@ -279,7 +279,7 @@ def amg_vcycle_apply(hier: AMGHierarchy, state, b, omega: float,
 
 
 def _scalar_matvec(vals, cols, x):
-    """(n,S) scalar ELL matvec (flat 1D gather: layout-proof on TPU)."""
+    """(n,S) scalar ELL matvec (flat 1D gather)."""
     n, S = vals.shape
     xg = x[cols.reshape(-1)].reshape(n, S)
     return jnp.sum(vals * xg, axis=1)
@@ -331,7 +331,7 @@ class SmoothedAggregationAMG(Preconditioner):
     (reference: AMGPreconditioner{:smoothed_aggregation}, precond/amg.jl:5,
     coarse reassembly :238-330, partial hierarchy updates :165).
 
-    TPU-native split: the hierarchy (strength graph, aggregates, P-row
+    Split of work: the hierarchy (strength graph, aggregates, P-row
     patterns, Galerkin triple-product scatter tables, smoother weights) is
     built ONCE from the first concrete Jacobian values (host numpy); every
     subsequent ``update`` re-runs only the value path — P values and

@@ -3,13 +3,12 @@
 One implementation of the 3-term recurrence (Saad Alg. 12.1 adapted to
 a diagonally preconditioned operator) used by the lattice GMG
 (ops/stencil.py), the aggregation/SA AMG (linsolve/amg.py) and the
-distributed CPR fine level (parallel/general_cpr.py) — the fused Mosaic
-kernels inline the identical recurrence with in-kernel scalars
-(ops/pallas/stencil_kernels.py). Keeping the interval logic here means
-a safeguard or interval change lands everywhere at once.
+distributed CPR fine level (parallel/general_cpr.py). Keeping the
+interval logic here means a safeguard or interval change lands
+everywhere at once.
 
 Convention for zero/dead diagonal rows: dinv = 0 (the row never
-updates), matching the fused kernels.
+updates).
 """
 from __future__ import annotations
 

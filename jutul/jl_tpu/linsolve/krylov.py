@@ -45,8 +45,8 @@ def gmres(matvec: Callable, b, x0=None, restart: int = 20,
     basis MATRIX in the cgs2 path — ``psum(jnp.dot(a, b))`` handles both).
 
     ``orth``: "cgs2" (classical Gram-Schmidt, twice — the Arnoldi
-    orthogonalization becomes TWO (m+1, N) matmuls that tile onto the
-    MXU, instead of m+1 sequential masked dots; reorthogonalization
+    orthogonalization becomes TWO (m+1, N) matrix products instead of
+    m+1 sequential masked dots; reorthogonalization
     makes it as stable as MGS in practice) or "mgs" (the sequential
     reference formulation).
     """
@@ -82,7 +82,7 @@ def gmres(matvec: Callable, b, x0=None, restart: int = 20,
             w = matvec(precond(V[k]))
             if orth == "cgs2":
                 # classical Gram-Schmidt x2: each pass is one (m+1, N)
-                # matmul (MXU) + one rank-1-ish combine; columns beyond k
+                # matmul + one rank-1-ish combine; columns beyond k
                 # are zero rows of V, so masking is only needed to keep
                 # the h coefficients clean
                 mask = (jnp.arange(m + 1) <= k).astype(dtype)
@@ -181,10 +181,7 @@ def bicgstab(matvec: Callable, b, x0=None, maxiter: int = 200,
     lattice (neq, nz, ny, nx) — as long as ``matvec``/``precond``
     consume and produce it. Keeping vectors in the operators' NATIVE
     shape avoids (n*ndof) <-> (n, ndof) relayouts at every matvec/
-    preconditioner boundary; the r4 healthy-worker stage run at 1M
-    cells measured the 2-D-native iteration at 6.8 ms vs 7.1 ms for
-    the flat-carry chain (a modest win — the chain is dominated by the
-    two V-cycle + matvec pairs, not the relayouts).
+    preconditioner boundary.
     """
     if precond is None:
         precond = _identity
@@ -234,38 +231,6 @@ def bicgstab(matvec: Callable, b, x0=None, maxiter: int = 200,
     return x, {"iterations": it, "residual": res, "converged": res <= tol}
 
 
-def resolve_bicgstab(dtype, use_fused: bool | None):
-    """Resolve the BiCGStab implementation: the fused Mosaic body
-    (ops/pallas/krylov_kernels.py) or the XLA chain. The single dispatch
-    point for StencilKrylovSolver AND GenericKrylov — change the auto
-    rule here only. Explicitly forcing the fused body on a non-f32
-    system raises: it computes in f32 and would silently lose the
-    precision the f64 conformance paths rely on.
-
-    Auto rule (r4): ALWAYS the XLA chain. Same-worker product A/B at the
-    1M-cell well-model flagship (2026-08-19, minutes apart, HEALTHY
-    canary): fused body 0.158 s/Newton (14.2 s device, 400 its,
-    ~35 ms/it) vs XLA chain with native 2-D carries 0.0769 s/Newton
-    (6.3 s device, 424 its, ~15 ms/it) — the fused kernels' flat-vector
-    interface forces layout conversions against the 2-D-native
-    matvec/V-cycle chain that cost far more than the dot/axpy fusion
-    saves. The Mosaic body remains available via use_fused_body=True
-    (and computes identically; it was the r3 record's configuration
-    when the solver carried flat vectors everywhere)."""
-    if use_fused is None:
-        use_fused = False
-    elif use_fused and dtype != jnp.float32:
-        raise ValueError(
-            "use_fused_body=True requires an f32 system (the Mosaic "
-            "body computes in f32 and would silently downcast); cast "
-            "the system or leave use_fused_body=None")
-    if use_fused:
-        from ..ops.pallas.krylov_kernels import bicgstab_fused
-
-        return bicgstab_fused
-    return bicgstab
-
-
 class GenericKrylov:
     """Krylov linear solver for BlockELL systems
     (reference linsolve/krylov.jl:34 GenericKrylov).
@@ -278,8 +243,7 @@ class GenericKrylov:
     def __init__(self, solver: str = "gmres", preconditioner: Preconditioner
                  | None = None, rtol: float = 1e-6, atol: float = 0.0,
                  max_iterations: int = 200, restart: int = 20,
-                 verbose: bool = False, use_fused_body: bool | None = None,
-                 orth: str = "cgs2"):
+                 verbose: bool = False, orth: str = "cgs2"):
         if solver not in ("gmres", "bicgstab"):
             raise ValueError(f"unknown solver {solver!r}")
         self.solver = solver
@@ -289,13 +253,7 @@ class GenericKrylov:
         self.max_iterations = max_iterations
         self.restart = restart
         self.verbose = verbose
-        self.orth = orth  # GMRES orthogonalization: "cgs2" (MXU) | "mgs"
-        # fused Mosaic BiCGStab body (ops/pallas/krylov_kernels.py);
-        # None -> auto: TPU backend + f32 system only
-        self.use_fused_body = use_fused_body
-
-    def _bicgstab_fn(self, dtype):
-        return resolve_bicgstab(dtype, self.use_fused_body)
+        self.orth = orth  # GMRES orthogonalization: "cgs2" | "mgs"
 
     def solve(self, J, r, rtol=None):
         """Solve J du = -r; shapes (n, neq) -> (n, ndof). Jit-compatible.
@@ -327,7 +285,7 @@ class GenericKrylov:
                              atol=self.atol, precond=precond,
                              orth=self.orth)
         else:
-            x, stats = self._bicgstab_fn(b.dtype)(
+            x, stats = bicgstab(
                 matvec, b, maxiter=self.max_iterations,
                 rtol=rtol, atol=self.atol, precond=precond)
         return x.reshape(n, ndof), stats
@@ -360,7 +318,7 @@ class GenericKrylov:
                              atol=self.atol, precond=precond,
                              orth=self.orth)
         else:
-            x, stats = self._bicgstab_fn(b.dtype)(
+            x, stats = bicgstab(
                 matvec, b, maxiter=self.max_iterations,
                 rtol=rtol, atol=self.atol, precond=precond)
         return J.unflatten_dofs(x), stats

@@ -6,12 +6,12 @@ Counterpart of Jutul's preconditioner zoo (reference: src/linsolve/precond/ —
 ``DiagonalPreconditioner``/``TrivialPreconditioner``/``LUPreconditioner``
 various.jl:1-77, AMG in amg.jl — see linsolve/amg.py).
 
-TPU-native re-design notes:
+JAX-native re-design notes:
 - Block-Jacobi inverts the (neq × ndof) diagonal blocks batched — one
   ``jnp.linalg.inv`` over the cell axis.
 - ILU(0): the reference does a sequential factorization + sequential
   triangular solves (StaticCSR/ilu0.jl:13-245) — both are hostile to a
-  2048-lane vector machine. Here ILU(0) uses the Chow–Saad fixed-point
+  data-parallel accelerator. Here ILU(0) uses the Chow–Saad fixed-point
   factorization (parallel sweeps over all nonzeros) and *iterated Jacobi
   triangular solves* (truncated Neumann series), which are embarrassingly
   parallel and converge in a handful of sweeps for FV matrices. This keeps
@@ -105,7 +105,7 @@ class ILU0Preconditioner(Preconditioner):
       z^{m+1} = D_U^{-1} (x_u - (U - D_U) z^m)
 
     This replaces the reference's sequential ilu_solve! (StaticCSR/ilu0.jl)
-    with data-parallel sweeps — the TPU-native trade.
+    with data-parallel sweeps — the accelerator trade.
     """
 
     def __init__(self, n_factor_sweeps: int = 5, n_solve_sweeps: int = 6):
@@ -122,8 +122,8 @@ class ILU0Preconditioner(Preconditioner):
         # transposed-partner slot: stored (i,j) -> slot of block (j,i) in
         # row j (FV sparsity is structurally symmetric). Registered as a
         # table so it can travel as a jit argument; the flat gather indices
-        # are derived IN-GRAPH (4D gathers constrain layouts to tile the
-        # tiny block dims — 64x padding at scale on TPU).
+        # are derived IN-GRAPH as flat 1D gathers over the tiny block
+        # dims).
         pkey = f"ilu0/{J.structure.cols_key or id(J.structure)}/partner"
         if not _tbl.has(pkey):
             rows_np = np.broadcast_to(np.arange(n)[:, None], (n, S))

@@ -282,71 +282,6 @@ class ImmiscibleSystem(JutulSystem):
         return OrderedDict(mass_conservation=TwoPhaseDarcyEquation(
             self.fluid.n_phases))
 
-    def scalar_assembly_form(self, model):
-        """Dof-scalar mirror of TwoPhaseDarcyEquation's flux/mass for the
-        fused Mosaic assembly kernel (see ScalarAssemblyForm). Phases are
-        unrolled in Python; every internal is a scalar jnp op, so the
-        closures run elementwise on 2D lattice slabs inside the kernel.
-        Must track evaluate() of PhaseMassDensities / BrooksCorey /
-        PhaseMobilities / TotalMasses and TwoPhaseDarcyEquation.flux
-        exactly."""
-        from .equations import ScalarAssemblyForm
-
-        f = self.fluid
-        nph = f.n_phases
-        rho0 = tuple(float(v) for v in f.reference_densities)
-        comp = tuple(float(v) for v in f.compressibilities)
-        pref = float(f.reference_pressure)
-        sr = tuple(float(v) for v in f.residual_saturations)
-        nexp = tuple(float(v) for v in f.corey_exponents)
-        mu = tuple(float(v) for v in f.viscosities)
-        sr_tot = sum(sr)
-
-        def saturations(u):
-            s = list(u[1:nph])
-            last = 1.0
-            for sd in s:
-                last = last - sd
-            return tuple(s) + (last,)
-
-        def densities(p):
-            return tuple(rho0[a] * jnp.exp(comp[a] * (p - pref))
-                         for a in range(nph))
-
-        def mobilities(s):
-            out = []
-            for a in range(nph):
-                s_eff = jnp.clip((s[a] - sr[a]) / (1.0 - sr_tot), 0.0, 1.0)
-                out.append(s_eff ** nexp[a] / mu[a])
-            return tuple(out)
-
-        def mass(u, cp):
-            pv = cp[0]
-            s = saturations(u)
-            rho = densities(u[0])
-            return tuple(pv * rho[a] * s[a] for a in range(nph))
-
-        def flux(u_l, u_r, cp_l, cp_r, fp):
-            T, gdz = fp
-            p_l, p_r = u_l[0], u_r[0]
-            rho_l, rho_r = densities(p_l), densities(p_r)
-            mob_l = mobilities(saturations(u_l))
-            mob_r = mobilities(saturations(u_r))
-            out = []
-            for a in range(nph):
-                rho_avg = 0.5 * (rho_l[a] + rho_r[a])
-                dpot = (p_l - p_r) - rho_avg * gdz
-                up = dpot >= 0.0
-                mob_up = jnp.where(up, mob_l[a], mob_r[a])
-                rho_up = jnp.where(up, rho_l[a], rho_r[a])
-                out.append(rho_up * mob_up * T * dpot)
-            return tuple(out)
-
-        return ScalarAssemblyForm(
-            flux=flux, mass=mass, n_eq=nph,
-            face_params=("Transmissibilities", "GravityPotentialDifference"),
-            cell_params=("FluidVolume",))
-
 
 class DarcyTransferCrossTerm:
     """Pressure-driven, upwinded phase-mass transfer between two Darcy

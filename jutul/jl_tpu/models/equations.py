@@ -6,7 +6,7 @@ Counterpart of Jutul's equations layer (reference: src/equations.jl —
 ``ConservationLaw`` core_types.jl:850, ``update_equation_in_entity!`` :78,
 TPFA storage :101; src/conservation/fvm_assembly.jl).
 
-TPU-native design: an equation is compiled into a list of *contributions*,
+JAX-native design: an equation is compiled into a list of *contributions*,
 each a pure per-entity function plus static index arrays. The assembly
 engine (ops/assembly.py) vmaps the functions for residual values and
 ``vmap(jacfwd(...))``'s them for Jacobian blocks — the JAX equivalent of the
@@ -58,43 +58,6 @@ class FaceFluxContribution:
     plus: np.ndarray  # (n_faces,) int — row receiving +flux
     minus: np.ndarray  # (n_faces,) int — row receiving -flux
     name: str = "flux"
-
-
-@dataclass(frozen=True)
-class ScalarAssemblyForm:
-    """Dof-scalar form of a conservation law for the fused Mosaic
-    assembly kernel (ops/pallas/assembly_kernels.py).
-
-    The generic contributions above are written against dict-of-array
-    local states; a system that ALSO provides this form (via a
-    ``scalar_assembly_form(model)`` method) exposes the same physics as
-    closures over PLAIN SCALARS — tuples of per-dof values, every
-    internal a scalar jnp op (+ * where exp clip ...), phases/components
-    unrolled in Python. Such closures evaluate unchanged on 2D lattice
-    arrays (elementwise broadcasting), which is exactly the Mosaic-safe
-    layout: no component axes materialize, so a Pallas kernel can run
-    the whole flux chain — and its jvp — on VMEM-resident slabs.
-
-    Contracts (u = tuple of ndof scalars, the packed Newton dofs):
-    - ``flux(u_l, u_r, cp_l, cp_r, fp) -> tuple of neq scalars``: face
-      flux from left to right; ``cp_*`` are the declared per-cell
-      parameter values on each side, ``fp`` the per-face parameters in
-      ``face_params`` order. Every output must vanish where the face
-      transmissibility-like ``fp`` entries are zero (the kernel relies
-      on zero-embedded face parameters to kill boundary positions).
-    - ``mass(u, cp) -> tuple of neq scalars``: conserved quantity per
-      cell (the accumulation term is (mass(u)-mass(u0))/dt).
-
-    The form MUST match the system's generic flux/mass functions exactly
-    (the fused path is validated against the autodiff path in
-    tests/test_fused_assembly.py).
-    """
-
-    flux: Callable
-    mass: Callable
-    n_eq: int
-    face_params: tuple  # face-entity parameter names, order of ``fp``
-    cell_params: tuple = ()  # cell-entity parameter names for ``cp``
 
 
 @dataclass

@@ -8,7 +8,7 @@ for ``FractionVariables`` at :388-471; abstract hierarchy in
 src/core_types/core_types.jl:19-88: ScalarVariable / VectorVariables /
 FractionVariables).
 
-Design notes (TPU-native):
+Design notes (JAX-native):
 - A variable's *values* live in the state dict as an array with entity axis
   first and (for vector variables) the component axis LAST — so elementwise
   secondary-variable formulas work identically on full state arrays

@@ -5,7 +5,7 @@ src/multimodel/model.jl:91-616 ``MultiModel``; src/multimodel/crossterm.jl
 :3-660 ``CrossTerm``/``AdditiveCrossTerm``/``CTSkewSymmetry`` +
 ``add_cross_term!``; linear system coupling src/linsolve/multimodel.jl).
 
-TPU-native design: a MultiModel is a dict of SimulationModels plus a list of
+JAX-native design: a MultiModel is a dict of SimulationModels plus a list of
 cross-term pairs with STATIC connection index arrays. Assembly compiles to:
 per-model BlockELL diagonal systems (the same vmap/jacfwd engine) plus
 coupling blocks — vmapped jacfwd of the cross-term local function over the

@@ -1,19 +1,18 @@
 """Native (C++) runtime components, loaded via ctypes.
 
 The reference leans on native libraries for partitioning (Metis/KaHyPar)
-and AMG (HYPRE/AMGCL); the TPU compute path here is XLA, but host-side
+and AMG (HYPRE/AMGCL); the device compute path here is XLA, but host-side
 graph work (partitioning, RCM reordering) stays native C++ for speed at
-1M+ cells. Build is on-demand (g++ -O3) with a pure-numpy fallback if no
-compiler is available.
+1M+ cells. Build is on-demand (g++ -O3, generic x86-64/aarch64 code)
+with a pure-numpy fallback if no compiler is available.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
-import os
+import platform
 import subprocess
-import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -23,19 +22,34 @@ _LIB = None
 _TRIED = False
 
 
+_FLAGS = ("-O3", "-shared", "-fPIC")
+
+
+def _host_tag() -> str:
+    """Machine architecture and host name: a library built on one host
+    is never loaded on another."""
+    return f"{platform.machine()}-{platform.node()}"
+
+
+def artifact_name(src: bytes, flags=_FLAGS, host: str | None = None) -> str:
+    """Library file name keyed by the source, the build flags and the
+    host. The key is a hash, so a stale or foreign .so can never be
+    picked up (git does not preserve mtimes, so an mtime check alone
+    could load an unreviewable binary after a fresh clone)."""
+    h = hashlib.sha256(src)
+    h.update(" ".join(flags).encode())
+    h.update((host if host is not None else _host_tag()).encode())
+    return f"libjutul_native_{h.hexdigest()[:16]}.so"
+
+
 def _build() -> Path | None:
-    # The artifact name embeds the source hash: a stale or foreign .so can
-    # never be picked up (git does not preserve mtimes, so an mtime check
-    # alone could load an unreviewable binary after a fresh clone).
     src = _HERE / "partitioner.cpp"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    out = _HERE / f"libjutul_native_{digest}.so"
+    out = _HERE / artifact_name(src.read_bytes())
     if out.exists():
         return out
     try:
         subprocess.run(
-            ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-             "-o", str(out), str(src)],
+            ["g++", *_FLAGS, "-o", str(out), str(src)],
             check=True, capture_output=True, timeout=120,
         )
         return out

@@ -361,8 +361,8 @@ extern "C" int jutul_partition(const int64_t* face_neighbors, int64_t n_faces,
 }
 
 // Reverse Cuthill-McKee ordering for bandwidth reduction — the reference
-// uses SymRCM for cache locality (SURVEY.md hard parts (c)); on TPU the
-// same ordering improves gather locality of the cell axis.
+// uses SymRCM for cache locality (SURVEY.md hard parts (c)); on the
+// device the same ordering improves gather locality of the cell axis.
 extern "C" int jutul_rcm(const int64_t* face_neighbors, int64_t n_faces,
                          int64_t n_cells, int64_t* out_perm) {
   CSR g = build_csr(face_neighbors, n_faces, n_cells);

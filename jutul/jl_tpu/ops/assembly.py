@@ -1,6 +1,6 @@
 """Assembly engine: compile a SimulationModel into jitted residual/Jacobian.
 
-This is the TPU-native counterpart of Jutul's entire AD + assembly stack
+This is the JAX-native counterpart of Jutul's entire AD + assembly stack
 (reference: src/ad/ad.jl dual allocation & fill_equation_entries!,
 src/ad/local_ad.jl LocalPerspectiveAD, src/ad/generic.jl GenericAutoDiffCache,
 src/equations.jl alignment, src/conservation/conservation.jl TPFA assembly).
@@ -156,8 +156,8 @@ class CompiledModel:
         """Invert the scatter: for every (row, slot) of the ELL matrix,
         which (face, stencil-k, sign) contributions land there.
 
-        This converts assembly from scatter-add (slow, layout-hostile on
-        TPU) to pure gathers — the TPU dual of the reference's half-face
+        This converts assembly from scatter-add (atomics, ordering-dependent
+        sums) to pure gathers — the dual of the reference's half-face
         CSR maps (src/domains.jl:101, conservation.jl conn_pos/conn_data).
         Off-diagonal slots of a two-point-style stencil receive at most P
         entries; diagonal rows receive up to the vertex degree.
@@ -325,7 +325,7 @@ class CompiledModel:
         Assembly is 100% gather-based: per-face fluxes are computed once,
         then each cell row SUMS its incident faces via the precomputed
         half-face tables (meta['r_face']/['r_sign']) — no scatter-adds in
-        the hot path (TPU scatters are slow and constrain layouts).
+        the hot path.
         """
         model = self.model
         n = self.n_cells
@@ -385,11 +385,9 @@ class CompiledModel:
         """Flat indices into blocks.reshape(-1) for updates of shape
         (m, n_eq_local, ndof) at (rows, slots, row_slice, :).
 
-        All Jacobian scatters go through FLAT 1D index space: on TPU a
-        scatter into a (n, S, neq, ndof) operand constrains its layout to
-        tile the trailing tiny block dims — a measured 64x padding blowup
-        (7 GB for a 112 MB operand at 1M cells). 1D scatters are layout-
-        proof. Counterpart of the reference's linear nzval indices
+        All Jacobian scatters go through FLAT 1D index space, so the
+        (n, S, neq, ndof) operand's tiny trailing block dims never shape
+        the scatter. Counterpart of the reference's linear nzval indices
         (jacobian_positions, ad/ad.jl:103).
         """
         S, neqT, ndof = self.ell.n_slots, self.neq_total, self.ndof

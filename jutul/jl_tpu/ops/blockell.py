@@ -1,12 +1,12 @@
 """Block-ELL sparse matrix: the framework's Jacobian format.
 
-TPU-native replacement for the reference's CSC/CSR/block-CSR Jacobians
+JAX-native replacement for the reference's CSC/CSR/block-CSR Jacobians
 (reference: src/core_types/core_types.jl:101-165 matrix layouts,
 src/StaticCSR/mat.jl StaticSparsityMatrixCSR, src/linsolve/default.jl
 LinearizedSystem). Rationale: ELL with a fixed number of slots per row and
 dense (neq × ndof) blocks gives static shapes, coalesced gathers, and SpMV as
-one batched einsum that XLA maps onto the MXU — no indirection-chasing CSR
-loops, which are hostile to TPU.
+one batched multiply-reduce that XLA fuses — no indirection-chasing CSR
+row loops.
 
 Structure (static, numpy, built once per model):
 - ``cols``  (n, S) int32: column cell of each slot; slot 0 is the diagonal;
@@ -87,9 +87,8 @@ class ELLStructure:
 
     def matvec_idx(self, ndof: int):
         """Flat gather index for SpMV, precomputed on host: idx[(i,s,j)] =
-        cols[i,s]*ndof + j. Computing this in-graph materializes a
-        (n, S, ndof) iota temp whose tiny trailing dims tile-pad 64x on
-        TPU (measured 4 GB at 1M cells); as a host table it is 56 MB."""
+        cols[i,s]*ndof + j, kept as a host table (56 MB at 1M cells)
+        instead of a (n, S, ndof) iota temp built in every program."""
         from . import tables as _tbl
 
         key = f"{self.cols_key or id(self)}/mvidx{ndof}"
@@ -199,13 +198,13 @@ def ell_matvec(blocks, cols, x):
 
     Padded slots hold zero blocks, so no masking is needed. All gathers go
     through flat 1D index space and the block product is a broadcast-
-    multiply-reduce, NOT dot_general — tiny block dims on the MXU force
-    (2,128)-tiled padded buffers (measured 64x memory blowup on TPU).
+    multiply-reduce, NOT dot_general: tiny block dims are no shape for a
+    matrix unit, and the elementwise form fuses with the gather.
     """
     n, S, neq, ndof = blocks.shape
     cols = jnp.asarray(cols)
-    # build the flat gather index with 1D ops only — a (n, S, ndof) iota
-    # temp would tile-pad 64x on TPU
+    # build the flat gather index with 1D ops only (no (n, S, ndof) iota
+    # temp)
     idx = (jnp.repeat(cols.reshape(-1) * ndof, ndof)
            + jnp.tile(jnp.arange(ndof, dtype=cols.dtype), n * S))
     xg = x.reshape(-1)[idx].reshape(n, S, ndof)

@@ -1,9 +1,9 @@
 """Small dense block operations without LAPACK.
 
-The block sizes in FV Jacobians are tiny (1-4: #equations per cell), and on
-TPU ``jnp.linalg.inv``/``lu`` are unavailable for f64 and slow for batched
-tiny matrices in general. These closed-form/Gauss-Jordan kernels keep block
-inversion on the VPU with no LAPACK custom calls (counterpart of the
+The block sizes in FV Jacobians are tiny (1-4: #equations per cell), and
+batched ``jnp.linalg.inv``/``lu`` calls on millions of tiny matrices are
+slow library calls. These closed-form/Gauss-Jordan formulas keep block
+inversion elementwise, fused, with no LAPACK custom calls (counterpart of the
 reference's StaticArrays SMatrix inverses, StaticCSR/ilu0.jl).
 """
 
@@ -71,14 +71,13 @@ def block_inv(A):
 
 def bmm(A, B):
     """Batched small-block matmul (..., i, j) @ (..., j, k) WITHOUT
-    dot_general: tiny contraction dims on the MXU force (2,128)-tiled
-    padded buffers (64x memory blowup at 1M cells); broadcast-multiply-
-    reduce keeps it on the VPU with sane layouts."""
+    dot_general: tiny contraction dims are no shape for a matrix unit;
+    broadcast-multiply-reduce stays elementwise and fuses."""
     return jnp.sum(A[..., :, :, None] * B[..., None, :, :], axis=-2)
 
 
 def bmv(A, x):
-    """Batched small-block matvec (..., i, j) @ (..., j) on the VPU."""
+    """Batched small-block matvec (..., i, j) @ (..., j), elementwise."""
     return jnp.sum(A * x[..., None, :], axis=-1)
 
 

@@ -16,7 +16,7 @@ and solving by Schur elimination of the (tiny) well block: the Krylov
 space sees only S = A_rr − A_rw A_ww⁻¹ A_wr — the lattice operator plus
 a rank-(nw·ndof) correction — preconditioned by the SAME CPR(GMG) stack
 as the well-free flagship; du_w back-substitutes exactly. This is the
-TPU counterpart of the reference's well treatment: wells are models
+counterpart of the reference's well treatment: wells are models
 coupled through cross-terms (reference src/multimodel/crossterm.jl:3-660)
 and the linear system eliminates well blocks via Schur
 (src/linsolve/multimodel.jl:17 MultiLinearizedSystem reduction), while
@@ -45,11 +45,11 @@ import numpy as np
 
 from .smallmat import block_inv
 
-# TPU einsum/dot default precision truncates inputs to bf16 — measured on
-# the 1M flagship (r5): the one-hot contractions rounded the gathered
-# perforation dofs and Jacobian blocks to ~3 digits, degrading Newton to
-# quasi-Newton (9.9 vs 4.7 linear its/Newton, 25 vs 13 ministeps). Every
-# contraction on this path carries full working precision.
+# Default einsum/dot precision may round float32 inputs to a shorter
+# mantissa (TF32 on the GPU): on the one-hot contractions that rounds the
+# gathered perforation dofs and Jacobian blocks to ~3 digits and degrades
+# Newton to quasi-Newton. Every contraction on this path carries full
+# working precision.
 _PREC = jax.lax.Precision.HIGHEST
 from .stencil import StencilCompiledModel, StencilMatrix, stencil_transpose
 
@@ -113,9 +113,9 @@ def _perf_onehot(nc, perf_cell, dtype):
     """(nc, np) one-hot selector generated from iota comparisons —
     never an indexed gather/scatter, so scatter-adds expressed through
     it (``einsum('np,p...->n...')``) impose NO layout on the big
-    operand (see _onehot_correction for the measured layout-poisoning
-    background). ``perf_cell`` may be concrete or traced (the bordered
-    matrix is assembled inside jit on the whole-schedule path)."""
+    operand (see _onehot_correction). ``perf_cell`` may be concrete or
+    traced (the bordered matrix is assembled inside jit on the
+    whole-schedule path)."""
     cells = jnp.asarray(perf_cell).astype(jnp.int32)
     rows = jax.lax.broadcasted_iota(jnp.int32, (nc, cells.shape[0]), 0)
     return (rows == cells[None, :]).astype(dtype)
@@ -159,8 +159,8 @@ class _LatticeView:
 
 class BorderedStencilModel:
     """Structured fast path over a CompiledModel on a WellGraphMesh:
-    lattice interior via StencilCompiledModel (incl. the fused Mosaic
-    assembly kernels), wellbores + perforations as a dense border.
+    lattice interior via StencilCompiledModel, wellbores + perforations
+    as a dense border.
 
     Drop-in for StencilCompiledModel in the Simulator/adjoint engines —
     ``assemble`` returns a BorderedStencilMatrix which
@@ -194,15 +194,6 @@ class BorderedStencilModel:
     @property
     def n_cells(self):
         return self.comp.n_cells  # nc + nw
-
-    # expose the lattice engine's fused-assembly switch
-    @property
-    def use_fused_assembly(self):
-        return self.lattice.use_fused_assembly
-
-    @use_fused_assembly.setter
-    def use_fused_assembly(self, v):
-        self.lattice.use_fused_assembly = v
 
     # -- state plumbing ---------------------------------------------------
     def _split_state(self, state):
@@ -329,7 +320,7 @@ class BorderedStencilModel:
         # residual[res] += F, residual[well] -= F. The diag update goes
         # through the one-hot contraction: diag feeds EVERY Krylov matvec
         # and CPR update, so an indexed scatter here would propagate its
-        # layout through the whole solve loop (the r4/r5 poisoning class)
+        # layout through the whole solve loop
         oh = _perf_onehot(self.nc, self.perf_cell, dtype)
         diag = diag + jnp.einsum("np,pij->ijn", oh, JF_l, precision=_PREC)
         J_rb = JF_r
@@ -389,13 +380,8 @@ class BorderedStencilModel:
         state0 = comp.evaluate_secondaries(state0)
         sr, _ = self._split_state(state)
         sr0, _ = self._split_state(state0)
-        U = comp.get_dofs(state)
-        if self.lattice._fused_assembly_on(U.dtype):
-            r_lat, A_lat = self.lattice._assemble_fused(
-                sr, sr0, dt, None, U[:self.nc])
-        else:
-            r_lat = self.lattice.residual(sr, sr0, dt)
-            A_lat = self.lattice.jacobian(sr, sr0, dt)
+        r_lat = self.lattice.residual(sr, sr0, dt)
+        A_lat = self.lattice.jacobian(sr, sr0, dt)
 
         # border residual (well acc + perforation fluxes)
         model = comp.model
@@ -432,12 +418,11 @@ def _well_boxes(B: BorderedStencilMatrix):
     lattice cells (same ix/iy, consecutive iz — the standard completion
     pattern), the per-matvec Schur correction can gather and scatter via
     static ``lax.slice``/``dynamic_update_slice`` on the 4-D lattice
-    view instead of indexed gather/scatter ops. This matters enormously
-    on TPU: a 40-row gather OR scatter on the Krylov-carried vector
-    inside the solve loop poisons XLA's layout assignment for the whole
-    V-cycle/matvec chain — measured +4.5 ms per linear iteration at 131k
-    cells (bench stage bisect `iter_wg`/`iter_wsc`/`iter_wbox`, r4) vs
-    +0.2 ms for the box form, with identical numerics."""
+    view instead of indexed gather/scatter ops: a few-row gather or
+    scatter on the Krylov-carried vector inside the solve loop can
+    constrain XLA's layout assignment for the whole V-cycle/matvec
+    chain, while the box form leaves it alone, with identical
+    numerics."""
     nzl, nyl, nxl = B.A.L
     pcell = np.asarray(B.perf_cell)
     pwell = np.asarray(B.perf_well)
@@ -463,12 +448,9 @@ def _well_boxes(B: BorderedStencilMatrix):
 def _onehot_correction(B: BorderedStencilMatrix, Dinv):
     """Layout-NEUTRAL Schur correction: gather/scatter/reshape-free.
 
-    The r4 box-slice form fixed the 131k layout poisoning (+4.5 ms/it ->
-    +0.2) but STILL cost ~10 ms/linear-iteration at the 1M lattice
-    (r5 product A/B: well models 14.3 ms/it vs source-term wells
-    3.9 ms/it on the same worker) — the 4-D reshape + dynamic-update-
-    slice chain on the Krylov-carried vector forces relayouts at that
-    shape. This form touches the carry with NOTHING but elementwise ops
+    The box-slice form avoids indexed ops, but its 4-D reshape +
+    dynamic-update-slice chain on the Krylov-carried vector can still
+    force relayouts at the flagship shape. This form touches the carry with NOTHING but elementwise ops
     and tiny contractions: a (nc, np) one-hot selector is generated
     in-register from iota comparisons (never materialized in HBM), the
     perforation gather is ``einsum('np,nj->pj', onehot, x)`` and the
@@ -508,8 +490,8 @@ def schur_eliminate(B: BorderedStencilMatrix, r, base_mv=None,
     perforations. ``correction_form``: "onehot" (default — the
     layout-neutral contraction form, see _onehot_correction), "box"
     (r4 static lattice-box slices; column completions only), or
-    "gather" (indexed gather/scatter; measured +4.5 ms/it of layout
-    poisoning at 131k). Env JUTUL_WELL_CORR overrides."""
+    "gather" (indexed gather/scatter). Env JUTUL_WELL_CORR
+    overrides."""
     import os
 
     nc = B.A.n
@@ -518,9 +500,8 @@ def schur_eliminate(B: BorderedStencilMatrix, r, base_mv=None,
     Dinv = block_inv(B.D_ww)  # (nw, ndof, neq) acting eq-residual -> dof
     form = correction_form or os.environ.get("JUTUL_WELL_CORR", "onehot")
     if form not in ("onehot", "box", "gather"):
-        # an unrecognized value must NOT fall through silently: the
-        # fallback is the measured-slowest gather form (+4.5 ms/linear
-        # iteration of layout poisoning at 131k, docs/tpu.md)
+        # an unrecognized value must NOT fall through silently to
+        # another form
         raise ValueError(
             f"correction_form {form!r} (JUTUL_WELL_CORR) must be one of "
             "'onehot', 'box', 'gather'")

@@ -1,6 +1,6 @@
 """Distributed discrete adjoint over the slab decomposition.
 
-TPU-native counterpart of the reference's distributed adjoint story: the
+JAX-native counterpart of the reference's distributed adjoint story: the
 reference solves adjoints through the same PArray machinery it uses
 forward (src/ad/gradients.jl:17-284 driving per-rank simulators;
 ext/JutulPartitionedArraysExt/ for the transposed distributed solves).

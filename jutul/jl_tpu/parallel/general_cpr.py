@@ -1,6 +1,6 @@
 """Distributed CPR for general partitions — pod-shaped (VERDICT r2 item 5).
 
-TPU-native counterpart of the reference's per-rank CPR under domain
+JAX-native counterpart of the reference's per-rank CPR under domain
 decomposition (reference: ext/JutulPartitionedArraysExt/linalg.jl:78
 parray_preconditioner_apply! with local ILU/AMG + optionally global AMG;
 src/linsolve/precond/cpr.jl quasi-IMPES weights). The slab engine's

@@ -1,6 +1,6 @@
 """Distributed MultiModel: SPMD coupled models over a partitioned main model.
 
-TPU-native counterpart of the reference's MultiModel domain decomposition
+JAX-native counterpart of the reference's MultiModel domain decomposition
 (reference: src/dd/subdomains.jl:41-250 ``SimpleMultiModelPartition`` /
 ``subdomain(::MultiModel)``, dd/submodels.jl ``submodel(::MultiModel)``,
 dd/subforces ``subforces(::MultiModel)``) — a coupled model (reservoir +

@@ -6,7 +6,7 @@ hypergraph partitioning with forced groups & weights :244-500). The
 reference delegates to Metis/KaHyPar (native C/C++); here the default is a
 pure-numpy BFS/greedy grower with group contraction, and a C++ multilevel
 partitioner (native/partitioner.cpp, loaded via ctypes) accelerates large
-graphs when built — the TPU-native replacement for those libraries.
+graphs when built — the JAX-native replacement for those libraries.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """SPMD sharded Newton step over a jax.sharding.Mesh.
 
-TPU-native counterpart of the reference's distributed Newton
+JAX-native counterpart of the reference's distributed Newton
 (reference: ext/JutulPartitionedArraysExt/overloads.jl:155-238
 ``perform_step!(::PArraySimulator)``: per-rank assembly, ghost sync of
 primaries, MPI-allreduce convergence, distributed Krylov). Mapping
@@ -8,7 +8,7 @@ primaries, MPI-allreduce convergence, distributed Krylov). Mapping
 
   per-rank submodel          -> ONE local extended-slab CompiledModel,
                                 executed SPMD by jax.shard_map
-  PVector consistent! (halo) -> lax.ppermute of boundary planes (ICI)
+  PVector consistent! (halo) -> lax.ppermute of boundary planes
   mpi_scalar_allreduce       -> lax.pmax / lax.psum
   distributed Krylov dot     -> psum-reducing dot_fn in bicgstab
   per-rank preconditioner    -> shard-local block-Jacobi (additive Schwarz)
@@ -319,8 +319,8 @@ class DistributedSimulator:
         one-level Schwarz cannot move global pressure modes. Gathering the
         scalar pressure stencil (7 coefficients per owned cell, once per
         Jacobian) and V-cycling it globally reproduces the single-chip CPR
-        contraction exactly; the redundant compute is the TPU-native trade
-        (compute is cheap, the gather rides ICI). This fills the role
+        contraction exactly; the redundant compute is the data-parallel trade
+        (compute is cheap, the gather rides the device interconnect). This fills the role
         HYPRE BoomerAMG plays for the reference's MPI ranks
         (ext/JutulPartitionedArraysExt/linalg.jl:78, krylov.jl:1-144)."""
         from ..linsolve.precond import ILU0Preconditioner

@@ -1,13 +1,13 @@
 """Slab domain decomposition over a device mesh.
 
-TPU-native counterpart of the reference's MPI domain decomposition
+JAX-native counterpart of the reference's MPI domain decomposition
 (reference: src/dd/ submodels/subdomains with ghost overlap,
 ext/JutulPartitionedArraysExt — per-rank submodel + PVector halo
 consistency). Where the reference builds per-rank submodel objects and
 exchanges ghosts through PartitionedArrays/MPI (interface.jl:189-220,
 krylov.jl:54,86), here the SAME local problem template is instantiated once
 and executed SPMD under ``jax.shard_map``; halo exchange is a
-``lax.ppermute`` of boundary planes over the ICI mesh, and global reductions
+``lax.ppermute`` of boundary planes over the device mesh, and global reductions
 are ``lax.psum`` (SURVEY.md §2.8 / §5 mapping).
 
 Decomposition: the global Cartesian mesh is cut into D contiguous slabs

@@ -1,6 +1,6 @@
 """SI units utilities.
 
-TPU-native counterpart of Jutul's units module (reference:
+JAX-native counterpart of Jutul's units module (reference:
 src/units/units.jl, src/units/interface.jl). Provides ``si_unit``,
 ``si_units``, ``convert_to_si`` and ``convert_from_si`` with the same unit
 vocabulary. Values are standard physical constants (SI definitions), written

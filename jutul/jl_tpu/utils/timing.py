@@ -5,7 +5,7 @@ src/Jutul.jl:48-52 ``@tic`` alias, ``timeit_debug_enabled``, enabled via the
 ``extra_timing`` config / JUTUL_EXTRA_TIMING env; printed by
 set_global_timer!/print.jl:1-26). Under jit most work fuses into single
 device calls, so timing here covers host-visible phases; for kernel-level
-profiles use ``jax.profiler`` (the TPU-native tracer).
+profiles use ``jax.profiler``.
 """
 
 from __future__ import annotations

@@ -1,11 +1,8 @@
 """Chebyshev GMG smoother + trilinear prolongation (ops/stencil.py).
 
-SURVEY hard part (a): polynomial smoothing is the TPU-native
+SURVEY hard part (a): polynomial smoothing is the data-parallel
 alternative to sequential triangular solves — no dot products, so it
-also stays communication-free under DD. Measured on the heterogeneous
-flagship pressure stencil: ~20% fewer CPR-BiCGStab iterations than
-weighted Jacobi in the EW-forcing regime (4 vs 5 at 131k, rtol 1e-3)
-at equal per-sweep cost via the fused whole-lattice kernels."""
+also stays communication-free under DD."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -60,7 +57,7 @@ def _flagship_system(nx=16, ny=16, nz=8, seed=0):
 
 def test_cheby_setup_bounds_spectrum():
     r, A = _flagship_system()
-    cpr = StencilCPR(gmg=GMG(use_pallas=False))
+    cpr = StencilCPR(gmg=GMG())
     state = cpr.update(A)
     Ap = state.ops[0]
     dinv, lmax = _cheby_setup(Ap)
@@ -74,40 +71,58 @@ def test_cheby_setup_bounds_spectrum():
     assert float(lmax) <= 3.0  # scaled M-matrix: lmax <= 2 (+ slack)
 
 
-def test_fused_cheby_kernel_matches_xla_chain():
-    """Interpret-mode whole-lattice Chebyshev kernel == the XLA-chain
-    recurrence (same formulas, one pallas program)."""
-    from jutul.jl_tpu.ops.pallas.stencil_kernels import (
-        PallasFusedScalarLevel,
-        XLAScalarLevel,
-    )
+def _numpy_cheby(M, b, u0, n_sweep, lmax, lower=0.25):
+    """Saad Alg. 12.1 on D^-1 M over [lower*lmax, lmax], in f64 numpy."""
+    dinv = 1.0 / np.diag(M)
+    lmin = lower * lmax
+    theta, delta = 0.5 * (lmax + lmin), 0.5 * (lmax - lmin)
+    sigma = theta / delta
+    rho = 1.0 / sigma
+    u = np.zeros_like(b) if u0 is None else u0.copy()
+    d = dinv * (b - M @ u) / theta
+    u = u + d
+    for _ in range(n_sweep - 1):
+        rho_new = 1.0 / (2.0 * sigma - rho)
+        d = rho_new * rho * d + 2.0 * rho_new / delta * dinv * (b - M @ u)
+        u = u + d
+        rho = rho_new
+    return u
+
+
+def _pressure_level():
+    from jutul.jl_tpu.ops.stencil import XLAScalarLevel
+    from test_stencil_reference import dense_scalar
 
     r, A = _flagship_system()
-    state = StencilCPR(gmg=GMG(use_pallas=False)).update(A)
-    Ap = state.ops[0]
+    Ap = StencilCPR(gmg=GMG()).update(A).ops[0]
     dinv, lmax = _cheby_setup(Ap)
-    lv_x = XLAScalarLevel(Ap)
-    lv_p = PallasFusedScalarLevel(Ap, interpret=True)
-    b = jnp.asarray(np.random.default_rng(2).normal(size=Ap.n), jnp.float32)
-    u0 = jnp.asarray(np.random.default_rng(3).normal(size=Ap.n), jnp.float32)
+    return Ap, XLAScalarLevel(Ap), dinv, lmax, dense_scalar(Ap)
 
-    ref0 = _cheby_smooth(lv_x, dinv, lmax, None, b, 4, 0.25)
-    got0 = lv_p.sweep_n_cheby(b, lmax, 4, 0.25)
-    np.testing.assert_allclose(np.asarray(got0), np.asarray(ref0),
-                               rtol=2e-5, atol=2e-5)
 
-    ref1 = _cheby_smooth(lv_x, dinv, lmax, u0, b, 3, 0.25)
-    got1 = lv_p.postsmooth_cheby(u0, b, lmax, 3, 0.25)
-    np.testing.assert_allclose(np.asarray(got1), np.asarray(ref1),
-                               rtol=2e-5, atol=2e-5)
+def test_cheby_smooth_matches_numpy_recurrence():
+    """The XLA Chebyshev smoother (from zero, from a guess, and the
+    pre-smoothing residual) == the f64 numpy recurrence."""
+    Ap, lv, dinv, lmax, M = _pressure_level()
+    b = np.random.default_rng(2).normal(size=Ap.n).astype(np.float32)
+    u0 = np.random.default_rng(3).normal(size=Ap.n).astype(np.float32)
+    lm = float(lmax)
+    scale = lambda ref: np.abs(ref).max()  # noqa: E731
 
-    u_ref = _cheby_smooth(lv_x, dinv, lmax, None, b, 2, 0.25)
-    r_ref = lv_x.residual(u_ref, b)
-    u_got, r_got = lv_p.presmooth_residual_cheby(b, lmax, 2, 0.25)
-    np.testing.assert_allclose(np.asarray(u_got), np.asarray(u_ref),
-                               rtol=2e-5, atol=2e-5)
-    np.testing.assert_allclose(np.asarray(r_got), np.asarray(r_ref),
-                               rtol=2e-5, atol=2e-4)
+    got = np.asarray(_cheby_smooth(lv, dinv, lmax, None, jnp.asarray(b),
+                                   4, 0.25))
+    ref = _numpy_cheby(M, b.astype(np.float64), None, 4, lm)
+    assert np.abs(got - ref).max() <= 2e-5 * scale(ref)
+
+    got = np.asarray(_cheby_smooth(lv, dinv, lmax, jnp.asarray(u0),
+                                   jnp.asarray(b), 3, 0.25))
+    ref = _numpy_cheby(M, b.astype(np.float64), u0.astype(np.float64), 3, lm)
+    assert np.abs(got - ref).max() <= 2e-5 * scale(ref)
+
+    u = _cheby_smooth(lv, dinv, lmax, None, jnp.asarray(b), 2, 0.25)
+    ref = _numpy_cheby(M, b.astype(np.float64), None, 2, lm)
+    rr = b - M @ ref
+    assert np.abs(np.asarray(lv.residual(u, jnp.asarray(b))) - rr).max() \
+        <= 2e-5 * scale(rr) + 2e-5 * scale(b)
 
 
 def test_prolong_linear_constant_and_gradient():
@@ -132,8 +147,8 @@ def test_cheby_cpr_solves_and_beats_jacobi(prol):
         solver = StencilKrylovSolver(
             preconditioner=StencilCPR(gmg=GMG(
                 n_smooth=2, n_coarse_sweeps=12, min_cells=512,
-                use_pallas=False, smoother=smoother, prolongation=prol)),
-            rtol=1e-3, max_iterations=100, use_fused_body=False)
+                smoother=smoother, prolongation=prol)),
+            rtol=1e-3, max_iterations=100)
         du, st = solver.solve(A, jnp.asarray(r))
         assert bool(st["converged"])
         return du, int(st["iterations"])
@@ -250,9 +265,9 @@ def test_chebyshev_through_simulate_jit():
     def run(smoother):
         solver = StencilKrylovSolver(
             preconditioner=StencilCPR(gmg=GMG(
-                n_smooth=2, min_cells=64, use_pallas=False,
+                n_smooth=2, min_cells=64,
                 smoother=smoother, prolongation="linear")),
-            rtol=1e-6, max_iterations=60, use_fused_body=False)
+            rtol=1e-6, max_iterations=60)
         sim = Simulator(model, state0=state0, use_stencil=True)
         res = sim.simulate_jit(
             [21600.0], forces=forces, linear_solver=solver,
@@ -268,35 +283,14 @@ def test_chebyshev_through_simulate_jit():
     assert rel < 1e-4, rel
 
 
-def test_slab_cheby_kernel_matches_xla_chain():
-    """Interpret-mode slab-tiled Chebyshev kernel == the XLA-chain
-    recurrence (deep-halo creep bounded exactly as for Jacobi)."""
-    from jutul.jl_tpu.ops.pallas.stencil_kernels import (
-        PallasSlabFusedScalarLevel,
-        XLAScalarLevel,
-    )
-
-    r, A = _flagship_system(16, 16, 8)
-    state = StencilCPR(gmg=GMG(use_pallas=False)).update(A)
-    Ap = state.ops[0]
-    dinv, lmax = _cheby_setup(Ap)
-    lv_x = XLAScalarLevel(Ap)
-    # tiny vmem budget forces real slab tiling (several grid programs)
-    lv_s = PallasSlabFusedScalarLevel(Ap, n_smooth=2, interpret=True,
-                                      vmem_budget=600 * 1024)
-    assert lv_s.tz < Ap.L[0], "budget did not force tiling"
-    b = jnp.asarray(np.random.default_rng(6).normal(size=Ap.n), jnp.float32)
-    u0 = jnp.asarray(np.random.default_rng(7).normal(size=Ap.n), jnp.float32)
-
-    u_ref = _cheby_smooth(lv_x, dinv, lmax, None, b, 2, 0.25)
-    r_ref = lv_x.residual(u_ref, b)
-    u_got, r_got = lv_s.presmooth_residual_cheby(b, lmax, 2, 0.25)
-    np.testing.assert_allclose(np.asarray(u_got), np.asarray(u_ref),
-                               rtol=2e-5, atol=2e-5)
-    np.testing.assert_allclose(np.asarray(r_got), np.asarray(r_ref),
-                               rtol=2e-5, atol=2e-4)
-
-    ref1 = _cheby_smooth(lv_x, dinv, lmax, u0, b, 2, 0.25)
-    got1 = lv_s.postsmooth_cheby(u0, b, lmax, 2, 0.25)
-    np.testing.assert_allclose(np.asarray(got1), np.asarray(ref1),
-                               rtol=2e-5, atol=2e-5)
+def test_cheby_coarsest_level_matches_numpy_recurrence():
+    """A single-level Chebyshev V-cycle is n_coarse_sweeps steps of the
+    recurrence from zero (the coarse-solve branch of GMG.vcycle)."""
+    Ap, lv, dinv, lmax, M = _pressure_level()
+    b = np.random.default_rng(6).normal(size=Ap.n).astype(np.float32)
+    gmg = GMG(n_coarse_sweeps=12, min_cells=Ap.n, smoother="chebyshev")
+    ops = gmg.hierarchy(Ap)
+    assert len(ops) == 1
+    got = np.asarray(gmg.vcycle(ops, jnp.asarray(b)))
+    ref = _numpy_cheby(M, b.astype(np.float64), None, 12, float(lmax))
+    assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max()

@@ -148,7 +148,7 @@ def test_extra_timing_and_breakdown():
 
 
 def test_simulate_jit_schedule_matches_eager():
-    """Whole-schedule single-program runner (the TPU bench path) matches
+    """Whole-schedule single-program runner (the bench path) matches
     the eager simulator and feeds report_stats."""
     from jutul.jl_tpu.models.darcy import PhaseSourceTerm
 

@@ -118,7 +118,7 @@ def test_galerkin_coarsening_exact():
 def test_galerkin_coarsening_exact_factor4():
     """f=4 aggressive coarsening: A_c x_c == restrict(A prolong(x_c))
     for pw-constant transfer with 4x4x4 blocks (one hop replaces two 2x
-    levels — the launch-count lever of docs/tpu.md r4)."""
+    levels)."""
     A = poisson_stencil(8, 4, 8)
     Ac = _coarsen_scalar(A, 4)
     assert Ac.L == (2, 1, 2)
